@@ -10,7 +10,7 @@ appropriately-typed array.
 Backends:
   * ``"oracle"`` — sequential pure-Python codec (correctness oracle).
   * ``"native"`` — the C++ runtime core (fast sequential, default when built).
-  * ``"jax"``    — the vectorized XLA/TPU FLCS encoder plus the batched
+  * ``"jax"``    — the vectorized XLA FLCS encoder plus the batched
                    amortized path (core.jax_codec; single-stream decode is
                    irreducibly serial and stays a lax.scan oracle there).
   * ``"auto"``   — FLCS: native if built, else oracle, for BOTH directions
@@ -18,8 +18,9 @@ Backends:
                    images: a single-stream encode pays host round-trips that
                    dwarf the device time at FLCS sizes — use ``"jax"``
                    explicitly, or the batched ``compress_images_bytes``
-                   below). FLCT: the TPU pipeline when a TPU is live, else
-                   the native threaded codec (``_flct_backend``).
+                   below). FLCT: the device pipeline unless the process
+                   computes on the CPU, then the native threaded codec
+                   (``_flct_backend``).
 
 Batched serving APIs: ``compress_images_bytes(images)`` (this module)
 encodes N FLCS containers in one fused device program; the FLCT equivalents
@@ -81,17 +82,18 @@ def _resolve_backend(backend: str, for_encode: bool):
 def _flct_backend(backend: str) -> str:
     """Backend choice for the tiled (FLCT) container.
 
-    FLCT is the TPU-parallel format, so ``auto`` routes to the jax/Pallas
-    pipeline whenever a TPU backend is live; the threaded C++ codec is the
-    CPU-host default. ``oracle`` has no tiled implementation and falls
-    through to the jax (XLA) pipeline, which is byte-identical.
+    FLCT is the device-parallel format, so ``auto`` routes to the jax
+    pipeline whenever JAX computes on an accelerator; only a process pinned
+    to the CPU gets the threaded C++ codec. ``oracle`` has no tiled
+    implementation and falls through to the jax (XLA) pipeline, which is
+    byte-identical.
     """
     if backend in ("jax", "native"):
         return backend
     if backend == "auto":
-        from felics_tpu.ops import pallas_codec
+        from felics_tpu.utils import platform
 
-        if pallas_codec.on_tpu():
+        if platform.backend() != "cpu":
             return "jax"
         from felics_tpu.native import runtime as native_runtime
 
@@ -119,7 +121,7 @@ def compress_image_bytes(
     tile=None,
 ) -> bytes:
     """``container``: "flcs" (reference-compatible single stream) or "flct"
-    (tiled-parallel TPU format; always encoded on the jax backend)."""
+    (the tiled-parallel format; see ``_flct_backend``)."""
     image = np.ascontiguousarray(image)
     if container == "flct":
         from felics_tpu.config import TileConfig
@@ -178,8 +180,8 @@ def compress_images_bytes(
     """Batched multi-image encode -> list of container byte strings.
 
     FLCS + ``backend="jax"`` runs core.jax_codec.compress_images_bytes (all
-    images in one fused kscan+pack program — the TPU serving path; bytes
-    identical to per-image encodes). Other backends loop the per-image
+    images in one fused kscan+pack program on the device; bytes identical
+    to per-image encodes). Other backends loop the per-image
     encoder. FLCT routes to parallel.batch.compress_tiled_batch.
     """
     if container == "flct":

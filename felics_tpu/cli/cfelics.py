@@ -3,7 +3,7 @@
 Parity with the reference CLI (src/bin/cfelics.rs:11-79): same ``-i/--input``
 ``-o/--output`` flags, same per-depth progress messages, exit code 1 with a
 printed message on unreadable/unsupported inputs. Extensions beyond the
-reference: ``--container flct`` (tiled TPU format), ``--backend``,
+reference: ``--container flct`` (tiled parallel format), ``--backend``,
 ``--tile-size``.
 """
 
@@ -28,7 +28,7 @@ def main(argv=None) -> int:
         "--container",
         choices=["flcs", "flct"],
         default="flcs",
-        help="flcs = reference-compatible single stream; flct = tiled TPU format.",
+        help="flcs = reference-compatible single stream; flct = tiled parallel format.",
     )
     parser.add_argument(
         "--backend",

@@ -7,7 +7,7 @@ coder exists in two forms:
   * scalar encode/decode against ``BitWriter``/``BitReader`` — the sequential
     oracle used for golden tests and the pure-Python fallback codec;
   * vectorized codeword generators returning ``(bits, length)`` arrays — the
-    form the TPU encoder consumes (codewords are materialized in parallel and
+    form the vectorized encoder consumes (codewords are materialized in parallel and
     packed by prefix-sum, never written serially).
 """
 

@@ -3,8 +3,8 @@
 The reference funnels per-depth compile-time constants (reference:
 src/compression/traits.rs:7-43) through a ``CodingOptions`` struct
 (src/compression.rs:63-68). Here the same knobs are a runtime dataclass, plus
-the TPU-specific knobs the reference has no counterpart for (tile geometry,
-mesh axis names, bit-buffer bucketing).
+the knobs of the parallel formats that the reference has no counterpart for
+(tile geometry, mesh axis names).
 
 Shipped constants (must match the reference bit-exactly for FLCS interop):
   8-bit:  K_VALUES = 0..=5,  MAX_CONTEXT = 510,    COUNT_SCALING = 1024
@@ -64,8 +64,8 @@ class CodingConfig:
 # Measured on the corpus (scripts + docs/FORMATS.md): merging is FREE on
 # ratio (-0.007% gray8, +0.03% gray16, 0% rgb8 at tile 32) because rare
 # high-Δ contexts all want the largest k anyway — while cutting the
-# per-(tile, channel) k-table to 6 rows x K, the dominant per-step cost of
-# both fused TPU kernels (40% fewer table elements for 8-bit, 67% for
+# per-(tile, channel) k-table to 6 rows x K, which the decoder selects from
+# and updates on every pixel (40% fewer table entries for 8-bit, 67% for
 # 16-bit). Format-level constant: every engine (XLA, Pallas, native C++,
 # oracle) must use the same value.
 QCTX_CAP = 5
@@ -109,10 +109,8 @@ class TileConfig:
     decode in parallel with zero cross-tile state. ``tile_h``/``tile_w`` trade
     compression ratio (smaller tiles → more restart overhead, less adapted k)
     against parallelism; 64x64 keeps the ratio within ~0.5% of single-stream
-    on the reference corpus (measured, 12x512x512 grayscale batch), gives a
-    512x512 image 64-way parallelism, and fits the fused Pallas kernels'
-    VMEM budget (ops.pallas_codec) — larger tiles fall back to the XLA
-    engine.
+    on the reference corpus (measured, 12x512x512 grayscale batch) and gives
+    a 512x512 image 64-way parallelism.
     """
 
     tile_h: int = 64

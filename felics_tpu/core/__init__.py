@@ -7,7 +7,7 @@ implementations live here:
   * ``oracle``    — a sequential, bit-exact scalar codec (numpy + Python bit
                     I/O). Slow; it is the correctness oracle for everything
                     else and the behavioral twin of the reference.
-  * ``jax_codec`` — the TPU-native vectorized encoder/decoder built from the
+  * ``jax_codec`` — the vectorized JAX encoder/decoder built from the
                     parallel analysis passes in felics_tpu.ops.
 """
 

@@ -16,7 +16,7 @@ are interop-critical):
     the largest candidate k.
 
 This class is the scalar/numpy oracle; the vectorized batched scan used by
-the TPU encoder lives in felics_tpu.ops.kscan and is tested against it.
+the vectorized encoder lives in felics_tpu.ops.kscan and is tested against it.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Behavioral twin of the reference's channel codec (src/compression.rs:76-248)
 and trait impls (src/compression.rs:250-410). Deliberately simple and slow —
 it exists to (a) pin the exact bitstream semantics and (b) oracle-test the
-vectorized TPU codec and the native C++ core against something independently
+vectorized JAX codec and the native C++ core against something independently
 derived from the spec.
 
 Stream layout per channel (bit-continuous; RGB channels are concatenated with

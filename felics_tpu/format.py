@@ -5,9 +5,9 @@ src/compression/format.rs:44-84): 4-byte magic ``FLCS``, 1-byte color type
 (0=Gray, 1=Rgb), 1-byte pixel depth (0=8-bit, 1=16-bit), big-endian u32 width,
 big-endian u32 height — a 14-byte header — followed by the bit-packed payload.
 
-``FLCT`` — our TPU-native tiled extension (no reference counterpart): the same
+``FLCT`` — our tiled extension (no reference counterpart): the same
 metadata plus a tile grid and a per-tile offset table so tiles decode as
-independent bitstreams in parallel across cores/chips. See
+independent bitstreams in parallel across threads and devices. See
 ``felics_tpu.parallel.tiling`` for the payload layout.
 
 Header-only metadata reads (without touching the payload) are a first-class

@@ -53,7 +53,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _load_attempted:
         return _lib
     _load_attempted = True
-    path = os.environ.get("FELICS_TPU_NATIVE_LIB", _lib_path())
+    path = os.environ.get("FELICS_NATIVE_LIB", _lib_path())
     if not os.path.exists(path):
         return None
     lib = ctypes.CDLL(path)

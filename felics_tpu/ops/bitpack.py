@@ -19,9 +19,9 @@ data-parallel GATHER-based construction over 32-bit words:
   3. bytes = big-endian split of the words, trimmed to the byte-aligned
      total (byte_align zero padding falls out of the zero-initialized plane).
 
-All gathers + dense ALU — no scatter anywhere (XLA TPU scatters serialize on
-duplicate indices and were 10x slower), so packing runs at memory bandwidth
-regardless of codeword lengths.
+All gathers + dense ALU — no scatter anywhere (scatters serialize on
+duplicate indices), so packing runs at memory bandwidth regardless of
+codeword lengths.
 """
 
 from __future__ import annotations
@@ -167,8 +167,8 @@ def pack_bits_scatter(
     ``n_big_pad``-sized array first (static, host-synced via
     count_big_symbols; pass 0 to keep the uncompacted N-wide slow path),
     then per-part scatters plus a word-interval diff + cumsum for run
-    interiors run on that tiny array. XLA TPU scatters cost per op element
-    regardless of masked-off writes, so compaction is ~5x on real images.
+    interiors run on that tiny array. A scatter costs per op element
+    regardless of masked-off writes, so the compaction pays for itself.
     Bit-disjoint contributions make integer add == bitwise or throughout.
     """
     assert b_pad % 32 == 0

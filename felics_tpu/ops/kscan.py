@@ -119,8 +119,8 @@ def kscan(
         return new_table, k_out
 
     init = jnp.zeros((c_pad, num_k), jnp.int32)
-    # unroll amortizes TPU per-step dispatch overhead (~tens of µs) across
-    # several rank updates per loop iteration.
+    # unroll amortizes the per-step loop overhead across several rank
+    # updates per loop iteration.
     _, k_by_rank = jax.lax.scan(
         step, init, (u.T, u_valid.T), unroll=8
     )  # (r_pad, c_pad)

@@ -1,7 +1,7 @@
 """Adaptive-k computation for the tiled (FLCT) mode — scan-free.
 
 FLCT makes two deliberate coding changes relative to FLCS, both chosen so
-the estimator maps perfectly onto a TPU:
+the estimator maps onto dense data-parallel device work:
 
   1. contexts are log-bucketed for the *k estimator only*
      (``qctx = min(bit_length(Δ), QCTX_CAP)``; phase-in coding still uses

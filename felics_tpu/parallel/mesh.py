@@ -1,29 +1,29 @@
 """Device-mesh sharding for the tiled (FLCT) pipeline.
 
-Tiles are mutually independent, so the natural multi-chip layout is the tile
-axis sharded over a 1-D mesh (data parallelism over tiles). BOTH production
-engines shard via ``jax.shard_map`` with ZERO device collectives (asserted
-from compiled HLO by the driver dry-run):
+Tiles are mutually independent, so the natural multi-device layout is the
+tile axis sharded over a 1-D mesh (data parallelism over tiles). Both
+directions shard via ``jax.shard_map`` with ZERO device collectives
+(asserted from compiled HLO by the tests and the dry run):
 
-  * Pallas engine (``_shardmap_encode_pallas`` / ``_shardmap_decode_pallas``):
-    each device runs the fused Mosaic kernels on its local tile slice;
-  * XLA engine (``_shardmap_encode_xla`` / ``_shardmap_decode_xla``): each
-    device runs the dense stage1/stage2 pipeline locally and packs every
-    tile into its own fixed-width word ROW (row-local offsets, no
-    cross-tile cumsum).
+  * encode (``_shardmap_encode_xla``): each device runs the dense
+    stage1/stage2 pipeline on its local tiles and packs every tile into its
+    own fixed-width word ROW (row-local offsets, no cross-tile cumsum);
+  * decode (``sharded_decode_bufs``): each device decodes its local word
+    rows with the resolved decode engine (the GPU kernel or the XLA scan).
 
-Both emit (n_tiles, W) word rows + per-tile lengths sharded over the tile
-axis; the container's byte-offset cumsum runs on the HOST over the gathered
+The container's byte-offset cumsum runs on the HOST over the gathered
 4·n_tiles-byte length vector — that result gather is the only cross-device
 movement, and it is output materialization, not an inner-loop exchange.
+Every device reaches every other at the same rate here, so nothing is laid
+out for a particular interconnect.
 
 ``fused_encode_step`` is additionally the whole encoder as ONE jittable
 program with static worst-case paddings (no host syncs) — the single-chip
 pjit/AOT form. Under GSPMD its global payload scatter compiles to
 all-reduces over the payload buffer (HLO-measured in the dry-run), which is
-why the sharded/multihost paths use the row-packed shard_map engines
+why the sharded/multihost paths use the row-packed shard_map encode
 instead. The host-synced dynamic-shape path in tiling.py remains the
-single-chip production encoder (tighter paddings → less wasted work).
+single-device production encoder (tighter paddings → less wasted work).
 """
 
 from __future__ import annotations
@@ -49,256 +49,42 @@ def make_tile_mesh(devices=None, axis: str = "tiles") -> Mesh:
     return Mesh(np.asarray(devices), (axis,))
 
 
-# Which engine actually ran the last sharded encode/decode — surfaced by the
-# driver dry-run and tests ("the production engine must be the one that
-# shards", VERDICT r3 item 1).
+# Which engine ran the last sharded encode/decode: the encode is always the
+# row-packed XLA pipeline; the decode engine is resolved like the
+# single-device one (tiling.resolve_decode_engine).
 LAST_ENGINE = {"encode": None, "decode": None}
-
-
-@functools.lru_cache(maxsize=128)
-def _encode_pallas_smfn(
-    mesh: Mesh, axis: str, th: int, tw: int, c: int, W: int,
-    cfg: CodingConfig, interpret: bool, prior_ndim: int, n_meta: int,
-):
-    """Cached jitted shard_map callable for the Pallas encode. Rebuilding
-    the shard_map closure per invocation re-traced + re-compiled every
-    call (measured 4.6 s/call vs 55 ms for the cached executable on a
-    1-device mesh); caching on the static configuration restores ordinary
-    jit executable reuse."""
-    from felics_tpu.ops import pallas_codec as pc
-
-    prior_spec = P() if prior_ndim == 3 else P(axis, None, None, None)
-
-    def local(tiles_l, prior_l, *meta_l):
-        L = tiles_l.shape[0]
-        return pc._encode_tiles_pallas(
-            tiles_l.reshape(L, -1), *meta_l, prior_l, th, tw, c, W, cfg,
-            interpret,
-        )
-
-    return jax.jit(
-        jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(axis, None, None), prior_spec, *([P()] * n_meta)),
-            out_specs=(P(axis, None), P(axis)),
-            check_vma=False,
-        )
-    )
-
-
-def _shardmap_encode_pallas(
-    tiles_dev, prior, mesh: Mesh, axis: str, th: int, tw: int, c: int,
-    W: int, cfg: CodingConfig, interpret: bool,
-):
-    """Per-shard fused Mosaic encode: each device runs ops.pallas_codec's
-    ring-buffered encode kernel on its local tile slice; there is NO
-    cross-device traffic inside the kernel (tiles are independent streams).
-    tiles_dev: (Lp, C, T) sharded over ``axis``; prior: (C, nb, K)
-    replicated OR (Lp, C, nb, K) per-tile sharded over ``axis`` (a
-    multi-image corpus where each image carries its own k0 prior).
-    Returns (words (Lp, W) uint32 sharded, bits (Lp,) int32)."""
-    from felics_tpu.ops import pallas_codec as pc
-
-    # Replicate the small metadata tables over the (possibly multi-process)
-    # mesh explicitly — closed-over host arrays are not addressable from
-    # non-local devices.
-    meta = [
-        jax.device_put(jnp.asarray(m), NamedSharding(mesh, P()))
-        for m in pc._meta_arrays(th, tw, c, cfg.depth_bits)
-    ]
-    f = _encode_pallas_smfn(
-        mesh, axis, th, tw, c, W, cfg, interpret, prior.ndim, len(meta)
-    )
-    return f(tiles_dev, prior, *meta)
-
-
-@functools.lru_cache(maxsize=128)
-def _decode_pallas_smfn(
-    mesh: Mesh, axis: str, th: int, tw: int, c: int, cfg: CodingConfig,
-    interpret: bool, n_meta: int,
-):
-    """Cached jitted shard_map callable for the Pallas decode (see
-    _encode_pallas_smfn for why)."""
-    from felics_tpu.ops import pallas_codec as pc
-
-    def local(cols_l, prior_l, *meta_l):
-        bufs = pc._decode_tiles_pallas(
-            cols_l, *meta_l, prior_l, th, tw, c, cfg, interpret
-        )
-        return bufs.reshape(cols_l.shape[0], c, th * tw)
-
-    return jax.jit(
-        jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(axis, None), P(), *([P()] * n_meta)),
-            out_specs=P(axis, None, None),
-            check_vma=False,
-        )
-    )
-
-
-def _shardmap_decode_pallas(
-    cols_dev, prior_rep, mesh: Mesh, axis: str, th: int, tw: int, c: int,
-    cfg: CodingConfig, interpret: bool,
-):
-    """Per-shard fused Mosaic decode over per-tile word rows (each device
-    holds only its own tiles' payload slice — nothing is replicated).
-    cols_dev: (Lp, wd) uint32 sharded over ``axis``. Returns (Lp, C, T)."""
-    from felics_tpu.ops import pallas_codec as pc
-
-    meta = [
-        jax.device_put(jnp.asarray(m), NamedSharding(mesh, P()))
-        for m in pc._meta_arrays(th, tw, c, cfg.depth_bits)[:2]
-    ]  # decode reads only the neighbour rows (static plane walk)
-    f = _decode_pallas_smfn(
-        mesh, axis, th, tw, c, cfg, interpret, len(meta)
-    )
-    return f(cols_dev, prior_rep, *meta)
-
-
-def sharded_pallas_encode_try(
-    tiles, prior, mesh: Mesh, axis: str, th: int, tw: int, c: int,
-    cfg: CodingConfig, n_tiles: int, engine: str, gather,
-    deterministic_w: bool,
-):
-    """Run the shard-mapped Pallas encode with stream-width sizing; the
-    single implementation behind the sharded and multihost encode paths.
-
-    Returns (lengths int64 (n_tiles,), words_np (n_tiles, W)) on success.
-    Returns None when (a) the per-tile streams exceeded the static width
-    bound — a DATA-dependent condition, not a kernel failure, so callers
-    fall back to the XLA engine (same bytes) without disabling Pallas,
-    matching the container paths; or (b) a kernel failure occurred under
-    engine='auto' (recorded via _disable_pallas). Kernel failures under
-    engine='pallas' raise.
-
-    ``gather(x)``: materialize a (possibly multi-process) sharded array —
-    or a pytree of them, in one round trip — on this host. ``deterministic_w``: use only the static width bound — a
-    multi-process job must pick W in LOCKSTEP, and the width-hint cache is
-    process-local mutable state (an unrelated local encode would desync
-    the shard_map shapes across processes).
-    """
-    from felics_tpu.ops import pallas_codec as pc
-
-    t = th * tw
-    enc_key = (th, tw, c, cfg.pixel_depth)
-    if not tiling._pallas_usable("sharded-encode", enc_key):
-        return None
-    wcap = pc.encode_width_bound(cfg, t, c)
-    widths = (
-        [wcap]
-        if deterministic_w
-        else list(dict.fromkeys([pc.width_hint(cfg, t, c), wcap]))
-    )
-    try:
-        for W in widths:
-            if not pc.kernel_plan(cfg, th, tw, c, W):
-                if engine == "pallas":
-                    raise ValueError(
-                        f"engine='pallas': {th}x{tw}x{c} exceeds the VMEM "
-                        "kernel plan; use engine='xla'/'auto'"
-                    )
-                return None
-            words, bits = _shardmap_encode_pallas(
-                tiles, prior, mesh, axis, th, tw, c, W, cfg, not pc.on_tpu()
-            )
-            # ONE gather round trip for both results (the words transfer is
-            # wasted only on the rare width-overflow retry; fetching bits
-            # first to decide cost a full extra RTT on every call).
-            bits_g, words_g = gather((bits, words))
-            bits_np = np.asarray(bits_g).astype(np.int64)[:n_tiles]
-            if int(bits_np.max()) <= W * 32:
-                pc.observe_width(cfg, t, c, int(bits_np.max()))
-                words_np = np.asarray(words_g)[:n_tiles]
-                return ((bits_np + 7) // 8).astype(np.int64), words_np
-        return None  # width overflow: pathological stream -> XLA engine
-    except Exception as e:
-        if engine == "pallas":
-            raise
-        tiling._disable_pallas("sharded-encode", enc_key, e)
-        if jax.process_count() > 1:
-            # A FRESH Mosaic failure mid-flight in a process group: peers
-            # that succeeded are already inside the collectives, so a local
-            # XLA fallback would desync/hang the job. Fail loudly instead
-            # (the pre-flight _agree_pallas handles the divergent-cache
-            # case; identical toolchains make a subset-only compile
-            # failure pathological).
-            raise RuntimeError(
-                "felics_tpu: Mosaic encode failure inside a multi-process "
-                "group under engine='auto'; rerun with engine='xla' (a "
-                "local fallback would desync the collectives)"
-            ) from e
-        return None
 
 
 def sharded_decode_bufs(
     cols, prior_rep, mesh: Mesh, axis: str, th: int, tw: int, c: int,
     cfg: CodingConfig, nb: int, wd: int, engine: str,
 ):
-    """Engine-routed shard-mapped tile decode over per-tile word rows; the
-    single implementation behind the sharded and multihost decode paths.
-    Returns (bufs (Lp, C, T) sharded, engine_used)."""
-    from felics_tpu.ops import pallas_codec as pc
-
-    dec_key = (th, tw, c, cfg.pixel_depth, wd)
-    if (tiling._resolve_engine(engine) == "pallas"
-            and tiling._pallas_usable("sharded-decode", dec_key)):
-        if engine == "pallas" and not pc.decode_fits(c * th * tw, wd, c, cfg):
-            raise ValueError(
-                f"engine='pallas': {th}x{tw} tiles with {c} channel(s) "
-                "exceed the VMEM decode plan; use engine='xla'/'auto'"
-            )
-        try:
-            bufs = _shardmap_decode_pallas(
-                cols, prior_rep, mesh, axis, th, tw, c, cfg, not pc.on_tpu()
-            )
-            return bufs, "pallas"
-        except Exception as e:
-            if engine == "pallas":
-                raise
-            tiling._disable_pallas("sharded-decode", dec_key, e)
-            if jax.process_count() > 1:
-                raise RuntimeError(
-                    "felics_tpu: Mosaic decode failure inside a "
-                    "multi-process group under engine='auto'; rerun with "
-                    "engine='xla' (a local fallback would desync the "
-                    "collectives)"
-                ) from e
-    bufs = _shardmap_decode_xla(
-        cols, prior_rep, mesh, axis, th, tw, c, cfg, nb
-    )
-    return bufs, "xla"
-
-
-def _shardmap_decode_xla(
-    cols_dev, prior_rep, mesh: Mesh, axis: str, th: int, tw: int, c: int,
-    cfg: CodingConfig, nb: int,
-):
-    """XLA-engine sharded decode over per-tile word rows: each device scans
-    its local tiles from its local payload slice (the r3 design replicated
-    the whole word buffer to every device; rows shard it instead)."""
-    wd = cols_dev.shape[1]
-    f = _decode_xla_smfn(mesh, axis, th, tw, c, cfg, nb, wd)
-    return f(cols_dev, prior_rep)
+    """Shard-mapped tile decode over per-tile word rows (each device holds
+    and decodes only its own tiles' slice of the payload); the single
+    implementation behind the sharded and multihost decode paths.
+    cols: (Lp, wd) uint32 sharded over ``axis``; prior_rep: (C, nb, K)
+    replicated. Returns (bufs (Lp, C, T) sharded, engine used)."""
+    engine = tiling.resolve_decode_engine(engine)
+    f = _decode_smfn(mesh, axis, th, tw, c, cfg, nb, wd, engine)
+    return f(cols, prior_rep), engine
 
 
 @functools.lru_cache(maxsize=128)
-def _decode_xla_smfn(
+def _decode_smfn(
     mesh: Mesh, axis: str, th: int, tw: int, c: int, cfg: CodingConfig,
-    nb: int, wd: int,
+    nb: int, wd: int, engine: str,
 ):
-    """Cached jitted shard_map callable for the XLA sharded decode (see
-    _encode_pallas_smfn for why)."""
+    """Cached jitted shard_map callable for the sharded decode. Rebuilding
+    the shard_map closure per invocation re-traces and re-compiles every
+    call; caching on the static configuration keeps ordinary jit
+    executable reuse."""
+    decode = tiling._decode_engine_fn(engine)
 
     def local(cols_l, prior_l):
         L = cols_l.shape[0]
         words = cols_l.reshape(-1)
         starts = jnp.arange(L, dtype=jnp.int32) * (wd * 32)
-        return tiling._decode_tiles(
-            words, starts, th, tw, c, cfg, nb, prior_l[None]
-        )
+        return decode(words, starts, th, tw, c, cfg, nb, prior_l[None])
 
     return jax.jit(
         jax.shard_map(
@@ -371,8 +157,7 @@ def worst_case_payload_bits(n_tiles: int, c: int, t: int, cfg: CodingConfig) -> 
 
 def xla_row_width(cfg: CodingConfig, t: int, c: int) -> int:
     """Per-tile row width (uint32 words) for the shard-mapped XLA encode.
-    Unlike the Pallas engine's width HINT (overflow detected + retried),
-    this is the true worst-case bound — the row-packed XLA engine never
+    This is the true worst-case bound: the row-packed XLA engine never
     overflows and needs no retry round trip."""
     return -(-_worst_tile_bits(c, t, cfg) // 32)
 
@@ -381,15 +166,13 @@ def _shardmap_encode_xla(
     tiles_dev, prior, mesh: Mesh, axis: str, th: int, tw: int, c: int,
     cfg: CodingConfig, nb: int,
 ):
-    """Per-shard XLA encode to per-tile word ROWS — the same output
-    contract as the shard-mapped Pallas engine, and like it COLLECTIVE-FREE
-    (the dryrun asserts this from compiled HLO): each device runs the dense
-    stage1/stage2 pipeline on its local tile slice and packs every tile
-    into its own fixed-width row (row-local offsets, no cross-tile cumsum).
-    The r4 form ran the monolithic ``fused_encode_step`` under GSPMD, whose
-    global payload scatter compiled to all-reduces over the whole payload
-    buffer (HLO-measured ~3.9 MB at 512 tiles vs the 2 KB length-cumsum
-    story — VERDICT r4 item 3); rows eliminate that by construction.
+    """Per-shard XLA encode to per-tile word ROWS, COLLECTIVE-FREE (the
+    dry run and tests assert this from compiled HLO): each device runs the
+    dense stage1/stage2 pipeline on its local tile slice and packs every
+    tile into its own fixed-width row (row-local offsets, no cross-tile
+    cumsum). The monolithic ``fused_encode_step`` under GSPMD instead
+    compiles its global payload scatter to all-reduces over the whole
+    payload buffer; rows avoid that by construction.
 
     tiles_dev: (Lp, C, T) sharded over ``axis``; prior: (C, nb, K)
     replicated OR (Lp, C, nb, K) sharded. Returns (words (Lp, W) uint32
@@ -404,7 +187,7 @@ def _encode_xla_smfn(
     nb: int, prior_ndim: int,
 ):
     """Cached jitted shard_map callable for the row-packed XLA encode (see
-    _encode_pallas_smfn for why)."""
+    _decode_smfn for why)."""
     t = th * tw
     W = xla_row_width(cfg, t, c)
     prior_spec = P() if prior_ndim == 3 else P(axis, None, None, None)
@@ -441,21 +224,16 @@ def encode_tiled_sharded(
     mesh: Mesh,
     tile: Optional[TileConfig] = None,
     axis: str = "tiles",
-    engine: str = "auto",
 ) -> bytes:
     """FLCT encode with the tile axis sharded over ``mesh``.
 
     Pads the tile count to a multiple of the mesh size (empty padding tiles
-    are dropped from the container). Produces byte-identical output to the
-    single-device tiling.compress_tiled_bytes for the same tile geometry,
-    with EITHER engine: ``"pallas"`` runs the fused Mosaic kernels per
-    shard via shard_map (the production engine — interpret mode off-TPU);
-    ``"xla"`` runs the dense stage1/stage2/bitpack pipeline under GSPMD;
-    ``"auto"`` picks pallas on TPU. The engine that actually ran is
-    recorded in ``LAST_ENGINE["encode"]``.
+    are dropped from the container). Each device runs the row-packed XLA
+    encode on its own tiles (``_shardmap_encode_xla``); the output is
+    byte-identical to the single-device tiling.compress_tiled_bytes for
+    the same tile geometry.
     """
     from felics_tpu.api import header_for_array
-    from felics_tpu.ops import pallas_codec as pc
 
     base = header_for_array(image)
     tile = tile or TileConfig()
@@ -466,55 +244,27 @@ def encode_tiled_sharded(
     cfg = tiled_config_for_depth(base.pixel_depth)
     nb = num_buckets(cfg)
 
-    tiles_np, ty, tx = tiling._prepare_tiles(image, base.color_type, th, tw)
-    n_tiles = tiles_np.shape[0]
-    c = tiles_np.shape[1]
-    t = th * tw
-    n_dev = mesh.devices.size
-    pad_tiles = (-n_tiles) % n_dev
-    if pad_tiles:
-        tiles_np = np.concatenate(
-            [tiles_np, np.zeros((pad_tiles,) + tiles_np.shape[1:], np.int32)]
-        )
-
-    # Start the (async) tile upload FIRST, then compute the host k0 prior
-    # while the transfer is in flight — serialized, the ~20-30 ms host k0
-    # pass sat entirely ahead of the upload on the critical path.
-    sharding = NamedSharding(mesh, P(axis, None, None))
-    tiles = jax.device_put(jnp.asarray(tiles_np), sharding)
-    k0 = tiling.compute_k0(tiles_np[:n_tiles], th, tw, cfg, nb)
+    tiles_np, _ty, _tx = tiling._prepare_tiles(image, base.color_type, th, tw)
+    n_tiles, c, _t = tiles_np.shape
+    k0 = tiling.compute_k0(tiles_np, th, tw, cfg, nb)
     prior_np = tiling.prior_from_k0(k0, cfg, c)
+    pad_tiles = (-n_tiles) % mesh.devices.size
+    tiles_np = np.concatenate(
+        [tiles_np, np.zeros((pad_tiles,) + tiles_np.shape[1:], np.int32)]
+    ).astype(tiling.narrow_tile_dtype(cfg.depth_bits, c))
 
-    if tiling._resolve_engine(engine) == "pallas":
-        prior_rep = jax.device_put(
-            jnp.asarray(prior_np), NamedSharding(mesh, P())
-        )
-        res = sharded_pallas_encode_try(
-            tiles, prior_rep, mesh, axis, th, tw, c, cfg, n_tiles, engine,
-            gather=jax.device_get, deterministic_w=False,
-        )
-        if res is not None:
-            tile_bytes_np, words_np = res
-            payload = tiling._columns_to_payload(words_np, tile_bytes_np)
-            LAST_ENGINE["encode"] = "pallas"
-            return tiling.pack_tiled_container(
-                base.color_type, base.pixel_depth, w, h, tw, th,
-                n_tiles, tile_bytes_np, payload, k0,
-            )
-        # None: width overflow or recorded kernel failure -> XLA engine
-        # (same bytes; engine='pallas' kernel failures raised above).
-
-    # XLA engine: shard-mapped row-packed encode — collective-free like the
-    # Pallas engine (the r4 GSPMD form all-reduced the payload buffer).
-    prior_rep2 = jax.device_put(
-        jnp.asarray(prior_np), NamedSharding(mesh, P())
-    )
+    # Straight from host memory to each device's shard (no staging copy on
+    # the first device).
+    tiles = jax.device_put(tiles_np, NamedSharding(mesh, P(axis, None, None)))
+    prior_rep = jax.device_put(prior_np, NamedSharding(mesh, P()))
     words, tile_bytes = _shardmap_encode_xla(
-        tiles, prior_rep2, mesh, axis, th, tw, c, cfg, nb
+        tiles, prior_rep, mesh, axis, th, tw, c, cfg, nb
     )
-    tile_bytes_np = np.asarray(tile_bytes, dtype=np.int64)[:n_tiles]
-    words_np = np.asarray(words)[:n_tiles]
-    payload = tiling._columns_to_payload(words_np, tile_bytes_np)
+    words_np, tile_bytes_np = jax.device_get((words, tile_bytes))
+    tile_bytes_np = np.asarray(tile_bytes_np, dtype=np.int64)[:n_tiles]
+    payload = tiling._columns_to_payload(
+        np.asarray(words_np)[:n_tiles], tile_bytes_np
+    )
     LAST_ENGINE["encode"] = "xla"
     return tiling.pack_tiled_container(
         base.color_type, base.pixel_depth, w, h, tw, th, n_tiles,
@@ -528,15 +278,11 @@ def decode_tiled_sharded(
     """FLCT decode with tiles sharded over ``mesh``.
 
     The payload is split into per-tile word rows and SHARDED over the tile
-    axis — each device holds and scans only its own tiles' slice of the
-    bitstream (the r3 design replicated the whole payload to every device,
-    which cannot scale with corpus size). ``engine="pallas"`` runs the
-    fused Mosaic decode kernel per shard; ``"xla"`` the vmapped scan;
-    ``"auto"`` picks pallas on TPU. ``LAST_ENGINE["decode"]`` records the
-    engine that ran.
+    axis — each device holds and decodes only its own tiles' slice of the
+    bitstream. ``engine`` as in tiling.resolve_decode_engine;
+    ``LAST_ENGINE["decode"]`` records the engine that ran.
     """
     from felics_tpu import errors
-    from felics_tpu.ops import pallas_codec as pc
 
     header = tiling.read_tiled_header(data)
     if header.n_tiles == 0:
@@ -557,20 +303,15 @@ def decode_tiled_sharded(
 
     # Per-tile word rows (the sharding unit). Padding lanes replicate tile
     # 0 — a valid stream, so every engine terminates — and are dropped.
-    wd = pc.bucket_words(int(-(-lens.max(initial=1) // 4)))
+    wd = tiling.bucket_words(int(-(-lens.max(initial=1) // 4)))
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
     rows = tiling._payload_to_columns(payload[:expected], starts, lens, wd)
-    n_dev = mesh.devices.size
-    pad_tiles = (-header.n_tiles) % n_dev
+    pad_tiles = (-header.n_tiles) % mesh.devices.size
     if pad_tiles:
         rows = np.concatenate([rows, np.repeat(rows[:1], pad_tiles, axis=0)])
 
-    cols = jax.device_put(
-        jnp.asarray(rows), NamedSharding(mesh, P(axis, None))
-    )
-    prior_rep = jax.device_put(
-        jnp.asarray(prior_np), NamedSharding(mesh, P())
-    )
+    cols = jax.device_put(rows, NamedSharding(mesh, P(axis, None)))
+    prior_rep = jax.device_put(prior_np, NamedSharding(mesh, P()))
 
     bufs, LAST_ENGINE["decode"] = sharded_decode_bufs(
         cols, prior_rep, mesh, axis, th, tw, c, cfg, nb, wd, engine

@@ -2,14 +2,13 @@
 
 The reference is a single-threaded, single-process program (SURVEY §2:
 "Parallelism / distributed inventory: none"); this module is the from-scratch
-distributed tier the TPU build adds (SURVEY §7 step 7): ``jax.distributed``
-process groups, a global 1-D tile mesh spanning every process's devices, and
-shard-mapped per-device encode running SPMD over it. BOTH engines (Pallas
-kernels and the row-packed XLA pipeline, mesh._shardmap_encode_xla) emit
-per-tile word rows with ZERO device collectives — the dryrun asserts this
-from compiled HLO; the only cross-host exchange is the result allgather
-plus the host-side offsets assembly from per-tile lengths (4·n_tiles
-bytes) — no hand-written NCCL/MPI analog.
+distributed tier (SURVEY §7 step 7): ``jax.distributed`` process groups, a
+global 1-D tile mesh spanning every process's devices, and shard-mapped
+per-device encode running SPMD over it. The row-packed XLA encode
+(mesh._shardmap_encode_xla) emits per-tile word rows with ZERO device
+collectives — the tests assert this from compiled HLO; the only cross-host
+exchange is the result allgather plus the host-side offsets assembly from
+per-tile lengths (4·n_tiles bytes) — no hand-written NCCL/MPI analog.
 
 Design constraints honored here:
 
@@ -25,7 +24,9 @@ Design constraints honored here:
     documented way to materialize a global array on every host).
 
 Run ``init_process()`` once per process before any JAX compute, then
-``encode_tiled_multihost``.
+``encode_tiled_multihost``. On GPUs, give each process exactly one card
+(``local_device_ids``): a JAX process reserves most of a card's memory when
+it first uses it, so a second process on the same card fails.
 """
 
 from __future__ import annotations
@@ -68,26 +69,18 @@ def global_tile_mesh(axis: str = "tiles"):
     return Mesh(np.asarray(jax.devices()), (axis,))
 
 
-def _agree_pallas(local_ok: bool) -> bool:
-    """Multi-process engine agreement under ``engine='auto'``.
-
-    Every process must take the same pallas-vs-xla branch — the shard_map
-    collectives desync (and the job hangs) otherwise. The
-    ``tiling._pallas_disabled`` cache is PROCESS-LOCAL mutable state: one
-    process may have recorded a Mosaic failure in earlier unrelated work
-    while its peers did not. So the decision is allgathered and ANDed
-    before committing: if any process cannot run Pallas, all fall back to
-    the XLA engine (same bytes). Single-process: the local decision."""
-    import jax
-
-    if jax.process_count() <= 1:
-        return local_ok
+def _gather_rows(words, tile_bytes, n_tiles: int):
+    """Allgather the row-packed encode results to every process; returns
+    (per-tile byte lengths int64, concatenated payload)."""
     from jax.experimental import multihost_utils
 
-    ok = multihost_utils.process_allgather(
-        np.asarray([1 if local_ok else 0], np.int32)
+    words_np, tile_bytes_np = multihost_utils.process_allgather(
+        (words, tile_bytes), tiled=True
     )
-    return bool(np.min(ok))
+    lengths = np.asarray(tile_bytes_np).astype(np.int64)[:n_tiles]
+    return lengths, tiling._columns_to_payload(
+        np.asarray(words_np)[:n_tiles], lengths
+    )
 
 
 def encode_tiled_multihost(
@@ -95,20 +88,14 @@ def encode_tiled_multihost(
     tile: Optional[TileConfig] = None,
     mesh=None,
     axis: str = "tiles",
-    engine: str = "auto",
 ) -> bytes:
     """FLCT encode with tiles sharded over a multi-process global mesh.
 
     Every process passes the same ``image`` and receives the same container
-    bytes — byte-identical to single-process tiling.compress_tiled_bytes,
-    with either engine: ``"pallas"`` runs the fused Mosaic kernels on each
-    process's shard via shard_map (interpret mode off-TPU); ``"xla"`` runs
-    the fused all-static XLA step; ``"auto"`` picks pallas on TPU.
+    bytes — byte-identical to single-process tiling.compress_tiled_bytes.
     ``mesh_mod.LAST_ENGINE["encode"]`` records the engine that ran.
     """
     import jax
-    import jax.numpy as jnp
-    from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from felics_tpu.api import header_for_array
@@ -125,18 +112,15 @@ def encode_tiled_multihost(
     cfg = tiled_config_for_depth(base.pixel_depth)
     nb = num_buckets(cfg)
 
-    tiles_np, ty, tx = tiling._prepare_tiles(image, base.color_type, th, tw)
-    n_tiles, c, t = tiles_np.shape
+    tiles_np, _ty, _tx = tiling._prepare_tiles(image, base.color_type, th, tw)
+    n_tiles, c, _t = tiles_np.shape
     k0 = tiling.compute_k0(tiles_np, th, tw, cfg, nb)
     prior_np = tiling.prior_from_k0(k0, cfg, c)
 
-    n_dev = mesh.devices.size
-    pad_tiles = (-n_tiles) % n_dev
-    if pad_tiles:
-        tiles_np = np.concatenate(
-            [tiles_np, np.zeros((pad_tiles,) + tiles_np.shape[1:], np.int32)]
-        )
-    nt_pad = tiles_np.shape[0]
+    pad_tiles = (-n_tiles) % mesh.devices.size
+    tiles_np = np.concatenate(
+        [tiles_np, np.zeros((pad_tiles,) + tiles_np.shape[1:], np.int32)]
+    ).astype(tiling.narrow_tile_dtype(cfg.depth_bits, c))
 
     sharding = NamedSharding(mesh, P(axis, None, None))
     # Each process contributes its addressable shards of the (replicated
@@ -144,50 +128,15 @@ def encode_tiled_multihost(
     tiles = jax.make_array_from_callback(
         tiles_np.shape, sharding, lambda idx: tiles_np[idx]
     )
-
     prior_rep = jax.make_array_from_callback(
         prior_np.shape,
         NamedSharding(mesh, P()),
         lambda idx: prior_np[idx],
     )
-    use_pallas = tiling._resolve_engine(engine) == "pallas"
-    if use_pallas and engine != "pallas":
-        # 'auto' in a process group: agree on the engine BEFORE the
-        # collectives (the per-process _pallas_disabled cache may diverge).
-        use_pallas = _agree_pallas(
-            tiling._pallas_usable("sharded-encode", (th, tw, c, cfg.pixel_depth))
-        )
-    if use_pallas:
-        # deterministic_w: every process must compile the same W (the
-        # width-hint cache is process-local mutable state); all other
-        # inputs are replicated, so success/fallback stays in lockstep.
-        res = mesh_mod.sharded_pallas_encode_try(
-            tiles, prior_rep, mesh, axis, th, tw, c, cfg, n_tiles, engine,
-            gather=lambda x: multihost_utils.process_allgather(x, tiled=True),
-            deterministic_w=jax.process_count() > 1,
-        )
-        if res is not None:
-            tile_bytes_np, words_np = res
-            payload = tiling._columns_to_payload(words_np, tile_bytes_np)
-            mesh_mod.LAST_ENGINE["encode"] = "pallas"
-            return tiling.pack_tiled_container(
-                base.color_type, base.pixel_depth, w, h, tw, th,
-                n_tiles, tile_bytes_np, payload, k0,
-            )
-
-    # XLA engine: shard-mapped row-packed encode (collective-free, same
-    # contract as the Pallas engine; the r4 GSPMD fused step all-reduced
-    # the payload buffer across hosts).
     words, tile_bytes = mesh_mod._shardmap_encode_xla(
         tiles, prior_rep, mesh, axis, th, tw, c, cfg, nb
     )
-    words_np = np.asarray(
-        multihost_utils.process_allgather(words, tiled=True)
-    )[:n_tiles]
-    tile_bytes_np = np.asarray(
-        multihost_utils.process_allgather(tile_bytes, tiled=True)
-    ).astype(np.int64)[:n_tiles]
-    payload = tiling._columns_to_payload(words_np, tile_bytes_np)
+    tile_bytes_np, payload = _gather_rows(words, tile_bytes, n_tiles)
     mesh_mod.LAST_ENGINE["encode"] = "xla"
     return tiling.pack_tiled_container(
         base.color_type, base.pixel_depth, w, h, tw, th, n_tiles,
@@ -200,18 +149,15 @@ def encode_corpus_multihost(
     tile: Optional[TileConfig] = None,
     mesh=None,
     axis: str = "tiles",
-    engine: str = "auto",
 ):
     """FLCT-encode a CORPUS (list of images) with every image's tiles
     concatenated into one global batch sharded over the multi-process mesh
-    (BASELINE configs[5]: pod-slice encode of a large corpus). Every
+    (an archive re-encode of a large corpus). Every
     process passes the same list and receives the same per-image
     containers, byte-identical to the single-process batch API. Per-image
     k0 priors ride the tile axis (sharded), so the only cross-device
     traffic remains the per-tile length bookkeeping."""
     import jax
-    import jax.numpy as jnp
-    from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from felics_tpu.parallel import mesh as mesh_mod
@@ -226,7 +172,7 @@ def encode_corpus_multihost(
     prep = _prep_encode_batch(images, tile)
     if prep is None:  # mixed clamping: per-image multihost encode
         return [
-            encode_tiled_multihost(im, tile, mesh, axis, engine)
+            encode_tiled_multihost(im, tile, mesh, axis)
             for im in images
         ]
     if mesh is None:
@@ -237,7 +183,6 @@ def encode_corpus_multihost(
     tiles_np, tile_group, counts = (
         prep["tiles_np"], prep["tile_group"], prep["counts"]
     )
-    t = th * tw
     n_tiles = tiles_np.shape[0]
     # k0 per image: deterministic host pass -> identical on every process.
     k0s = tiling.compute_k0_batch(tiles_np, counts, th, tw, cfg, nb)
@@ -254,7 +199,7 @@ def encode_corpus_multihost(
             [prior_tiles, np.zeros((pad_tiles,) + prior_tiles.shape[1:],
                                    np.int32)]
         )
-    nt_pad = tiles_np.shape[0]
+    tiles_np = tiles_np.astype(tiling.narrow_tile_dtype(cfg.depth_bits, c))
 
     tiles = jax.make_array_from_callback(
         tiles_np.shape,
@@ -267,36 +212,12 @@ def encode_corpus_multihost(
         lambda idx: prior_tiles[idx],
     )
 
-    use_pallas = tiling._resolve_engine(engine) == "pallas"
-    if use_pallas and engine != "pallas":
-        use_pallas = _agree_pallas(
-            tiling._pallas_usable("sharded-encode", (th, tw, c, cfg.pixel_depth))
-        )
-    if use_pallas:
-        res = mesh_mod.sharded_pallas_encode_try(
-            tiles, prior, mesh, axis, th, tw, c, cfg, n_tiles, engine,
-            gather=lambda x: multihost_utils.process_allgather(x, tiled=True),
-            deterministic_w=jax.process_count() > 1,
-        )
-        if res is not None:
-            lengths, words_np = res
-            payload = tiling._columns_to_payload(words_np, lengths)
-            mesh_mod.LAST_ENGINE["encode"] = "pallas"
-            return _pack_batch_containers(prep, lengths, payload, k0s)
-
-    # XLA engine: shard-mapped row-packed encode with the per-tile priors
-    # riding the sharded tile axis (collective-free; see
-    # mesh._shardmap_encode_xla).
+    # Row-packed XLA encode with the per-tile priors riding the sharded
+    # tile axis (collective-free; see mesh._shardmap_encode_xla).
     words, tile_bytes = mesh_mod._shardmap_encode_xla(
         tiles, prior, mesh, axis, th, tw, c, cfg, nb
     )
-    words_np = np.asarray(
-        multihost_utils.process_allgather(words, tiled=True)
-    )[:n_tiles]
-    lengths = np.asarray(
-        multihost_utils.process_allgather(tile_bytes, tiled=True)
-    ).astype(np.int64)[:n_tiles]
-    payload = tiling._columns_to_payload(words_np, lengths)
+    lengths, payload = _gather_rows(words, tile_bytes, n_tiles)
     mesh_mod.LAST_ENGINE["encode"] = "xla"
     return _pack_batch_containers(prep, lengths, payload, k0s)
 
@@ -308,19 +229,16 @@ def decode_tiled_multihost(
     engine: str = "auto",
 ) -> np.ndarray:
     """FLCT decode with tile streams sharded over a multi-process global
-    mesh (VERDICT r3 item 6: the encode-only multihost path now has its
-    mirror). Every process passes the same container bytes; the per-tile
+    mesh (the mirror of the multihost encode). Every process passes the same container bytes; the per-tile
     word rows are sharded so each process scans only its own slice, and the
     decoded planes are allgathered to every host. Returns the image
     (identical on every process)."""
     import jax
-    import jax.numpy as jnp
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from felics_tpu import errors
     from felics_tpu.format import PixelDepth
-    from felics_tpu.ops import pallas_codec as pc
     from felics_tpu.parallel import mesh as mesh_mod
 
     header = tiling.read_tiled_header(data)
@@ -342,7 +260,7 @@ def decode_tiled_multihost(
     if len(payload) < expected:
         raise errors.IoError("truncated FLCT payload")
 
-    wd = pc.bucket_words(int(-(-lens.max(initial=1) // 4)))
+    wd = tiling.bucket_words(int(-(-lens.max(initial=1) // 4)))
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
     rows = tiling._payload_to_columns(payload[:expected], starts, lens, wd)
     n_dev = mesh.devices.size
@@ -357,15 +275,10 @@ def decode_tiled_multihost(
         prior_np.shape, NamedSharding(mesh, P()), lambda idx: prior_np[idx]
     )
 
-    eng = engine
-    if tiling._resolve_engine(engine) == "pallas" and engine != "pallas":
-        ok = tiling._pallas_usable(
-            "sharded-decode", (th, tw, c, cfg.pixel_depth, wd)
-        ) and pc.decode_fits(c * th * tw, wd, c, cfg)
-        if not _agree_pallas(ok):
-            eng = "xla"
+    # Every process resolves the same engine: the choice depends only on
+    # the platform, which the group shares.
     bufs, mesh_mod.LAST_ENGINE["decode"] = mesh_mod.sharded_decode_bufs(
-        cols, prior_rep, mesh, axis, th, tw, c, cfg, nb, wd, eng
+        cols, prior_rep, mesh, axis, th, tw, c, cfg, nb, wd, engine
     )
 
     bufs_np = np.asarray(

@@ -1,37 +1,42 @@
 """Persistent XLA compilation cache.
 
-The fused Mosaic kernels take ~30-90 s to compile on a TPU backend; a CLI
-invocation (one process per image) would pay that on every run without a
-persistent cache. ``enable()`` points JAX's compilation cache at a durable
-directory so the second process reuses the first one's binaries. Called by
-the CLI entry points and the benchmark driver; library users embedding
-felics_tpu in a long-lived process don't need it (in-process caching
-suffices) but may call it too — it is idempotent and never raises.
+A CLI invocation (one process per image) or a benchmark run would otherwise
+recompile every program in every process. ``enable()`` points JAX's
+persistent compilation cache at a durable directory so a later process
+reuses earlier compiles:
+
+  * when ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    this module sets no other directory;
+  * otherwise the cache is ``<checkout>/.jax_cache`` (git-ignored): a fixed
+    path, since the path is part of what a later run must find again.
+
+Called by the CLI entry points, bench.py and chip_smoke.py. Library users
+embedding felics_tpu in a long-lived process don't need it (in-process
+caching suffices) but may call it too — it is idempotent.
 """
 
 from __future__ import annotations
 
 import os
 
-_enabled = False
+import jax
+
+CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+DEFAULT_DIR = os.path.join(CHECKOUT, ".jax_cache")
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
-def enable(directory: str | None = None) -> None:
-    global _enabled
-    if _enabled:
-        return
-    try:
-        import jax
+def cache_dir() -> str:
+    """The directory ``enable`` caches compiled programs in."""
+    return os.environ.get(ENV_VAR) or DEFAULT_DIR
 
-        d = directory or os.environ.get(
-            "FELICS_TPU_JAX_CACHE",
-            os.path.join(
-                os.path.expanduser("~"), ".cache", "felics_tpu", "jax"
-            ),
-        )
+
+def enable() -> str:
+    """Turn on the persistent cache; returns its directory."""
+    d = cache_dir()
+    if not os.environ.get(ENV_VAR):
         os.makedirs(d, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        _enabled = True
-    except Exception:
-        pass  # cacheless operation is always correct, just slower
+    return d

@@ -6,8 +6,8 @@
 // path of the framework: single-stream FLCS decode is irreducibly serial at
 // pixel granularity (each pixel's context needs previously decoded pixels and
 // the adaptive k tables need every prior out-of-range residual), so the
-// production decode path is native; the TPU owns the parallel encode and the
-// tiled (FLCT) mode.
+// production decode path is native; the accelerator owns the parallel encode
+// and the tiled (FLCT) mode.
 //
 // Design notes (deliberately not a port of the Rust structure):
 //   * one 64-bit accumulator bit writer / branch-light bit reader;

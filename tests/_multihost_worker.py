@@ -39,18 +39,19 @@ def main() -> int:
         np.cumsum(np.cumsum(rng.integers(-6, 7, (64, 48)), 0), 1) + 128, 0, 255
     ).astype(np.uint8)
     data = multihost.encode_tiled_multihost(img, TileConfig(16, 16))
-    # Engine parity under the multi-process mesh: the fused Pallas kernels
-    # (interpret mode on CPU) must produce the same container bytes.
-    data_pallas = multihost.encode_tiled_multihost(
-        img, TileConfig(16, 16), engine="pallas"
-    )
-    assert data_pallas == data, "multihost pallas/xla bytes diverge"
-    # Multihost decode (VERDICT r3 item 6), both engines, round-trip exact.
+    # The multi-process encode must produce the native C++ codec's bytes.
+    from felics_tpu.api import header_for_array
+    from felics_tpu.native import runtime as native_runtime
+
+    if native_runtime.available():
+        assert data == native_runtime.compress_tiled(
+            img, header_for_array(img), 16, 16
+        ), "multihost bytes diverge from the native codec"
+    # Multihost decode, both engines, round-trip exact.
     for eng in ("xla", "pallas"):
         out = multihost.decode_tiled_multihost(data, engine=eng)
         assert np.array_equal(out, img), f"multihost {eng} decode mismatch"
-    # Corpus encode (BASELINE configs[5]): every image's tiles in one
-    # global sharded batch; containers byte-equal to the single-process
+    # Corpus encode: every image's tiles in one global sharded batch; containers byte-equal to the single-process
     # batch API.
     from felics_tpu.parallel.batch import compress_tiled_batch
 

@@ -85,38 +85,61 @@ def test_batch_decode_corruption_raises_or_is_exact(rng):
         np.testing.assert_array_equal(tiling.decompress_tiled_bytes(d), im)
 
 
+def _native_bytes(images, tile):
+    from felics_tpu.api import header_for_array
+    from felics_tpu.native import runtime as native_runtime
+
+    if not native_runtime.available():
+        return None
+    return [
+        native_runtime.compress_tiled(
+            im, header_for_array(im), tile.tile_w, tile.tile_h
+        )
+        for im in images
+    ]
+
+
 def test_batch_pallas_onepass_matches_xla(rng):
-    """The fused single-dispatch chains (encode_container_onepass /
-    decode_container_onepass, incl. the per-tile prior tile_group path)
-    against the split XLA engine, multi-image, both depths."""
+    """Mixed-shape batches ("tiles" path, per-image k-prior seeds through
+    the tile-group gather), both depths: the batch encoder's containers
+    equal the native codec's, and the Pallas decode kernel round-trips
+    them."""
+    from felics_tpu.parallel import batch
+
     for dtype in (np.uint8, np.uint16):
         images = [
             smooth(rng, 32, 32, dtype),
             smooth(rng, 48, 16, dtype),
         ]
-        pal = compress_tiled_batch(images, TILE16, engine="pallas")
-        xla = compress_tiled_batch(images, TILE16, engine="xla")
-        assert pal == xla, f"{dtype}: fused pallas batch != xla batch"
-        outs = decompress_tiled_batch(pal, engine="pallas")
+        blobs = compress_tiled_batch(images, TILE16)
+        assert batch.LAST_PATH["encode"] == "tiles"
+        native = _native_bytes(images, TILE16)
+        if native is not None:
+            assert blobs == native, f"{dtype}: batch bytes != native"
+        outs = decompress_tiled_batch(blobs, engine="pallas")
+        assert batch.LAST_PATH["decode"] == "tiles"
+        assert tiling.LAST_ENGINE["decode"] == "pallas"
         for im, out in zip(images, outs):
             np.testing.assert_array_equal(out, im)
 
 
 def test_batch_pallas_rgb_round_trip(rng):
     images = [smooth(rng, 32, 16, channels=3), smooth(rng, 16, 32, channels=3)]
-    pal = compress_tiled_batch(images, TILE16, engine="pallas")
-    assert pal == compress_tiled_batch(images, TILE16, engine="xla")
-    outs = decompress_tiled_batch(pal, engine="pallas")
+    blobs = compress_tiled_batch(images, TILE16)
+    native = _native_bytes(images, TILE16)
+    if native is not None:
+        assert blobs == native
+    outs = decompress_tiled_batch(blobs, engine="pallas")
     for im, out in zip(images, outs):
         np.testing.assert_array_equal(out, im)
 
 
 def test_fast_paths_engage_for_uniform_batches(rng):
-    """The serving fast paths have data-dependent eligibility; a silent
-    fallback to a slower path is exactly the r4 failure mode on the
-    rgb8/gray16 bench. Pin via batch.LAST_PATH that uniform same-shape
-    batches take the raw-pixel device path BOTH directions for all three
-    corpus classes (pallas engine; interpret mode on CPU)."""
+    """The serving paths are chosen from the batch's shapes; a silent
+    fallback to a slower path is the failure to catch. Pin via
+    batch.LAST_PATH that uniform same-shape batches take the raw-pixel
+    device path BOTH directions for all three pixel classes (decode through
+    the Pallas kernel; interpret mode on CPU)."""
     from felics_tpu.parallel import batch
 
     tc = TileConfig(16, 16)
@@ -135,9 +158,10 @@ def test_fast_paths_engage_for_uniform_batches(rng):
                 np.clip(base + np.iinfo(dtype).max // 2, 0,
                         np.iinfo(dtype).max).astype(dtype)
             )
-        blobs = batch.compress_tiled_batch(imgs, tc, engine="pallas")
+        blobs = batch.compress_tiled_batch(imgs, tc)
         assert batch.LAST_PATH["encode"] == "images", (shape, dtype)
         outs = batch.decompress_tiled_batch(blobs, engine="pallas")
         assert batch.LAST_PATH["decode"] == "images", (shape, dtype)
+        assert tiling.LAST_ENGINE["decode"] == "pallas"
         for a, b in zip(imgs, outs):
             np.testing.assert_array_equal(a, b)

@@ -4,7 +4,7 @@ Walks the reference image suite, round-trips every image through the native
 backend, asserts exact equality against the reference's PUBLISHED corpus
 totals (the parity oracle), and prints per-folder compress/decompress wall
 time and compressed size. The full 146-image sweep runs BY DEFAULT (it costs
-~11 s); set FELICS_TPU_FULL_CORPUS=0 to run a fixed subset per folder.
+~11 s); set FELICS_FULL_CORPUS=0 to run a fixed subset per folder.
 """
 
 import os
@@ -18,7 +18,7 @@ from felics_tpu.io.images import load_image
 
 SUITE = "/root/reference/image-suite"
 FOLDERS = ["grayscale/8bit", "grayscale/16bit", "rgb/8bit"]
-FULL = os.environ.get("FELICS_TPU_FULL_CORPUS", "1") != "0"
+FULL = os.environ.get("FELICS_FULL_CORPUS", "1") != "0"
 PER_FOLDER = None if FULL else 6
 
 
@@ -125,7 +125,7 @@ def test_corpus_tiled_round_trip():
 @pytest.mark.parametrize("tile", [64, 32])
 def test_size_budget_within_one_percent(tile, sub, n_files):
     """North-star budget: FLCT total within 1% of single-stream FLCS, for
-    ALL THREE corpus classes (BASELINE covers gray8, gray16 AND rgb8).
+    ALL THREE corpus classes (gray8, gray16 AND rgb8).
 
     Runs the default tile (64) and the benched tile (32) through the native
     codec (byte-identical to the jax pipeline per tests/test_native_tiled.py).

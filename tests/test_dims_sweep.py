@@ -6,7 +6,7 @@ native codecs — the SAME 21x21 grid as the reference's #[ignore]d sweep,
 but on by default (byte-equality + exact round trip — catches preamble/edge
 bugs in all four format combos); including the jax backend for every shape
 would jit-compile ~440 distinct programs, so the jax column covers a spanning
-subset by default and the full grid under FELICS_TPU_FULL_SWEEP=1
+subset by default and the full grid under FELICS_FULL_SWEEP=1
 (mirroring the reference's ignore-gating of the expensive variant).
 """
 
@@ -17,7 +17,7 @@ import pytest
 
 from felics_tpu.api import compress_image_bytes, decompress_image_bytes
 
-FULL_JAX = os.environ.get("FELICS_TPU_FULL_SWEEP", "0") == "1"
+FULL_JAX = os.environ.get("FELICS_FULL_SWEEP", "0") == "1"
 JAX_DIMS = {0, 1, 2, 3, 5, 12, 20}
 
 

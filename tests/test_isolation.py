@@ -1,5 +1,5 @@
-"""Per-item error isolation in the batched decode APIs (VERDICT r4 item 4)
-and the truncated-FLCT-payload batch hole (r4 advisor, medium).
+"""Per-item error isolation in the batched decode APIs and the
+truncated-FLCT-payload batch hole.
 
 The reference decodes images independently by construction; a serving API
 must not discard a whole batch because one member is corrupt. These tests

@@ -1,4 +1,4 @@
-"""Vectorized TPU codec vs the sequential oracle: byte-for-byte equality.
+"""Vectorized JAX codec vs the sequential oracle: byte-for-byte equality.
 
 This is the core bit-exactness guarantee: the parallel pipeline
 (analyze → kscan → symbolize → bitpack) must reproduce the reference

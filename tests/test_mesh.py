@@ -54,18 +54,17 @@ def test_sharded_decode_matches(rng):
 
 @pytest.mark.parametrize("engine", ["xla", "pallas"])
 def test_sharded_engines_byte_identical(rng, engine):
-    # VERDICT r3 item 1: the fused Pallas engine must be the one that
-    # shards. Both engines, both directions, byte/pixel-identical to the
-    # single-device path on the 8-device mesh (pallas = interpret mode on
-    # CPU, Mosaic on TPU).
+    # Both decode engines shard. Encode (row-packed XLA) and decode are
+    # byte/pixel-identical to the single-device path on the 8-device mesh
+    # (pallas = the GPU kernel, in interpret mode on CPU).
     from felics_tpu.parallel.mesh import LAST_ENGINE
 
     img = smooth_image(rng, 96, 64)  # 24 tiles -> 3 per device
     mesh = make_tile_mesh()
     single = tiling.compress_tiled_bytes(img, TILE16)
-    data = encode_tiled_sharded(img, mesh, TILE16, engine=engine)
+    data = encode_tiled_sharded(img, mesh, TILE16)
     assert data == single
-    assert LAST_ENGINE["encode"] == engine
+    assert LAST_ENGINE["encode"] == "xla"
     out = decode_tiled_sharded(data, mesh, engine=engine)
     np.testing.assert_array_equal(out, img)
     assert LAST_ENGINE["decode"] == engine
@@ -76,15 +75,15 @@ def test_sharded_engines_rgb16(rng, engine):
     img = smooth_image(rng, 48, 32, np.uint16, 3)
     mesh = make_tile_mesh()
     single = tiling.compress_tiled_bytes(img, TILE16)
-    data = encode_tiled_sharded(img, mesh, TILE16, engine=engine)
+    data = encode_tiled_sharded(img, mesh, TILE16)
     assert data == single
     out = decode_tiled_sharded(data, mesh, engine=engine)
     np.testing.assert_array_equal(out, img)
 
 
 def test_sharded_decode_rows_are_sharded(rng):
-    # The decode payload must be split per-tile and sharded, not replicated
-    # (VERDICT r3 item 5): every device's addressable shard of the row
+    # The decode payload must be split per-tile and sharded, not
+    # replicated: every device's addressable shard of the row
     # matrix covers only its slice of the tile axis.
     img = smooth_image(rng, 64, 64)  # 16 tiles over 8 devices
     data = tiling.compress_tiled_bytes(img, TILE16)
@@ -95,11 +94,14 @@ def test_sharded_decode_rows_are_sharded(rng):
 
 @pytest.mark.parametrize("engine", ["xla", "pallas"])
 def test_corpus_encode_sharded_matches_batch(rng, engine):
-    # BASELINE configs[5]: a corpus (many images) encoded with every tile
-    # sharded over the mesh, per-image k0 priors riding the tile axis.
-    # Single-process here (the 2-process variant runs in the multihost
-    # worker); bytes must equal the serving batch API exactly.
-    from felics_tpu.parallel.batch import compress_tiled_batch
+    # A corpus (many images) encoded with every tile sharded over the mesh,
+    # per-image k0 priors riding the tile axis. Single-process here (the
+    # 2-process variant runs in the multihost worker); bytes must equal the
+    # serving batch API exactly, and decode with either engine.
+    from felics_tpu.parallel.batch import (
+        compress_tiled_batch,
+        decompress_tiled_batch,
+    )
     from felics_tpu.parallel.multihost import encode_corpus_multihost
 
     images = [
@@ -107,10 +109,12 @@ def test_corpus_encode_sharded_matches_batch(rng, engine):
         smooth_image(rng, 48, 64),
         smooth_image(rng, 32, 32),
     ]
-    ref = compress_tiled_batch(images, TILE16, engine)
+    ref = compress_tiled_batch(images, TILE16)
     mesh = make_tile_mesh()
-    got = encode_corpus_multihost(images, TILE16, mesh=mesh, engine=engine)
+    got = encode_corpus_multihost(images, TILE16, mesh=mesh)
     assert got == ref
+    for im, out in zip(images, decompress_tiled_batch(got, engine)):
+        np.testing.assert_array_equal(out, im)
 
 
 def test_fused_encode_step_matches_dynamic(rng):
@@ -141,39 +145,32 @@ def test_fused_encode_step_matches_dynamic(rng):
 
 
 def test_shardmap_engines_compile_collective_free(rng):
-    """Both production sharded engines (Pallas kernels and the row-packed
-    XLA pipeline) must compile to ZERO device collectives — tiles are
+    """The sharded encode (row-packed XLA pipeline) and the sharded decode
+    with either engine must compile to ZERO device collectives — tiles are
     independent, and the container's offsets assemble on the host from the
-    gathered per-tile lengths. The r4 form ran the monolithic
-    fused_encode_step under GSPMD, whose global payload scatter all-reduced
-    the whole payload buffer (HLO-measured ~3.9 MB at 512 tiles)."""
+    gathered per-tile lengths. The monolithic fused_encode_step under GSPMD
+    instead all-reduces the whole payload buffer."""
     import re
 
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
     from felics_tpu.config import tiled_config_for_depth
-    from felics_tpu.format import PixelDepth
-    from felics_tpu.ops import pallas_codec as pc
+    from felics_tpu.format import ColorType, PixelDepth
     from felics_tpu.ops.kscan_tiled import num_buckets
     from felics_tpu.parallel import mesh as mesh_mod
 
     mesh = make_tile_mesh()
     n_dev = mesh.devices.size
     th = tw = 16
-    t = th * tw
     cfg = tiled_config_for_depth(PixelDepth.EIGHT)
     nb = num_buckets(cfg)
     nt = 8 * n_dev
     img = smooth_image(rng, tw * 4, th * (nt // 4))
-    from felics_tpu.format import ColorType
 
     tiles, _, _ = tiling._prepare_tiles(img, ColorType.GRAY, th, tw)
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    tl = jax.device_put(
-        jax.numpy.asarray(tiles), NamedSharding(mesh, P("tiles", None, None))
-    )
+    tl = jax.device_put(tiles, NamedSharding(mesh, P("tiles", None, None)))
     prior = jax.device_put(
-        jax.numpy.zeros((1, nb, cfg.num_k), jax.numpy.int32),
-        NamedSharding(mesh, P()),
+        np.zeros((1, nb, cfg.num_k), np.int32), NamedSharding(mesh, P())
     )
 
     def collectives(txt):
@@ -190,20 +187,22 @@ def test_shardmap_engines_compile_collective_free(rng):
     )
     assert collectives(xla_fn.lower(tl, prior).compile().as_text()) == []
 
-    W = pc.width_hint(cfg, t, 1)
-    pallas_fn = jax.jit(
-        lambda td, pr: mesh_mod._shardmap_encode_pallas(
-            td, pr, mesh, "tiles", th, tw, 1, W, cfg, not pc.on_tpu()
-        )
+    wd = 64
+    cols = jax.device_put(
+        np.zeros((nt, wd), np.uint32), NamedSharding(mesh, P("tiles", None))
     )
-    assert collectives(pallas_fn.lower(tl, prior).compile().as_text()) == []
+    for engine in ("xla", "pallas"):
+        dec = mesh_mod._decode_smfn(
+            mesh, "tiles", th, tw, 1, cfg, nb, wd, engine
+        )
+        txt = dec.lower(cols, prior).compile().as_text()
+        assert collectives(txt) == [], engine
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 def test_xla_row_width_bounds_worst_case_streams(rng, dtype):
     """The row-packed XLA engine writes each tile into a fixed
-    xla_row_width row with NO overflow detection (unlike the Pallas width
-    hint) — the bound must hold for ANY input or streams would silently
+    xla_row_width row with NO overflow detection — the bound must hold for ANY input or streams would silently
     truncate. Adversarial check: pure-noise (incompressible) and
     alternating-extremes tiles must fit, and the sharded bytes must equal
     the unsharded encoder's."""
@@ -227,8 +226,8 @@ def test_xla_row_width_bounds_worst_case_streams(rng, dtype):
     checker[::2, 1::2] = hi
     checker[1::2, ::2] = hi
     for img in (noise, checker):
-        data = encode_tiled_sharded(img, mesh, TILE16, engine="xla")
-        assert data == tiling.compress_tiled_bytes(img, TILE16, engine="xla")
+        data = encode_tiled_sharded(img, mesh, TILE16)
+        assert data == tiling.compress_tiled_bytes(img, TILE16)
         hdr = tiling.read_tiled_header(data)
         w_bound = xla_row_width(cfg, th * tw, 1) * 4
         assert int(hdr.tile_lengths.max()) <= w_bound

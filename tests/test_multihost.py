@@ -1,8 +1,7 @@
 """Multi-process (2 x 4 CPU devices) distributed-encode test.
 
-SURVEY §7 step 7 / BASELINE configs[4]: jax.distributed.initialize, tiles
-sharded over the global mesh, the per-tile length cumsum as the only
-collective. Each worker joins the process group, encodes the SAME image over
+SURVEY §7 step 7: jax.distributed.initialize, tiles sharded over the global
+mesh, the per-tile length cumsum as the only collective. Each worker joins the process group, encodes the SAME image over
 the 8-device global mesh, and must produce container bytes identical to the
 single-process encoder — proving the multi-host path changes the execution
 layout, never the format.

@@ -96,8 +96,8 @@ def test_native_bad_signature():
 def test_native_errors_carry_detail(rng):
     """The C ABI threads a failure detail through fel_last_error: the
     exception text must say WHAT failed (e.g. "FLCT tile table
-    truncated"), not a bare "native codec error -1" (VERDICT r4 item 5;
-    reference: descriptive variants in src/compression/error.rs:4-19)."""
+    truncated"), not a bare "native codec error -1" (reference:
+    descriptive variants in src/compression/error.rs:4-19)."""
     from felics_tpu import errors
     from felics_tpu.config import TileConfig
     from felics_tpu.native import runtime as rt

@@ -1,8 +1,8 @@
 """Pipelined streaming serving API (parallel.batch.*_tiled_stream).
 
 The stream keeps N batches in flight (dispatch batch i+1 before fetching
-batch i) to overlap wire with compute; output must be byte/pixel-identical
-to the one-shot batched API for every engine.
+batch i) to overlap host work, transfers and compute; output must be
+byte/pixel-identical to the one-shot batched API for every decode engine.
 """
 
 import jax
@@ -14,7 +14,7 @@ from felics_tpu.config import TileConfig
 
 # NOTE: compile-state hygiene for this module (and the other heavy
 # interpret-Pallas modules) lives in conftest.py
-# (_clear_caches_between_heavy_modules) — see docs/DESIGN.md 7.3.
+# (_clear_caches_between_heavy_modules).
 from felics_tpu.parallel.batch import (
     compress_tiled_batch,
     compress_tiled_stream,
@@ -39,8 +39,8 @@ def test_stream_matches_batch(rng, engine):
         [],
         [smooth(rng, 80, 16)],
     ]
-    ref = [compress_tiled_batch(b, TILE16, engine) for b in batches]
-    got = compress_tiled_stream(batches, TILE16, engine)
+    ref = [compress_tiled_batch(b, TILE16) for b in batches]
+    got = compress_tiled_stream(batches, TILE16)
     assert got == ref
     dec = decompress_tiled_stream(ref, engine)
     for out_list, img_list in zip(dec, batches):
@@ -77,15 +77,15 @@ def test_same_shape_images_fast_path_bytes_identical(rng, channels):
     from felics_tpu.parallel import tiling
 
     images = [smooth(rng, 64, 48, np.uint8, channels) for _ in range(3)]
-    ref = [tiling.compress_tiled_bytes(im, TILE16, "pallas") for im in images]
-    got = compress_tiled_batch(images, TILE16, "pallas")
+    ref = [tiling.compress_tiled_bytes(im, TILE16) for im in images]
+    got = compress_tiled_batch(images, TILE16)
     assert got == ref
     outs = decompress_tiled_batch(got, "pallas")
     for im, out in zip(images, outs):
         np.testing.assert_array_equal(out, im)
         assert out.dtype == im.dtype
     # and through the stream
-    assert compress_tiled_stream([images], TILE16, "pallas") == [ref]
+    assert compress_tiled_stream([images], TILE16) == [ref]
     souts = decompress_tiled_stream([got], "pallas")[0]
     for im, out in zip(images, souts):
         np.testing.assert_array_equal(out, im)
@@ -96,7 +96,7 @@ def test_same_shape_corrupt_batch_raises(rng):
     from felics_tpu import errors
 
     images = [smooth(rng, 48, 48) for _ in range(2)]
-    blobs = compress_tiled_batch(images, TILE16, "pallas")
+    blobs = compress_tiled_batch(images, TILE16)
     bad = blobs[1][: len(blobs[1]) // 2] + b"\xff" * (
         len(blobs[1]) - len(blobs[1]) // 2
     )

@@ -196,110 +196,69 @@ def test_long_unary_fallback():
     np.testing.assert_array_equal(out, img)
 
 
-def test_device_compaction_matches_host(rng):
-    """_compact_payload_jit / _expand_columns_jit (the on-device serving-path
-    payload movers) against the host reference implementations, including
-    junk words beyond each tile's used count (the encoder's ring spill may
-    leave residue there) and byte-irregular tile boundaries."""
-    import jax.numpy as jnp
+def test_long_unary_fallback_kernel():
+    """The same overrun, decoded by the Pallas kernel: its unary run leaves
+    the 64-bit window and takes the kernel's own slow loop."""
+    img = np.zeros((16, 16), dtype=np.uint16)
+    img[0, ::2] = 1
+    img[8, 8] = 65535
+    data = compress_tiled_bytes(img, TILE16)
+    out = decompress_tiled_bytes(data, engine="pallas")
+    np.testing.assert_array_equal(out, img)
 
+
+def test_payload_words_match_host_columns(rng):
+    """_payload_words (the decoders' upload: big-endian words of the
+    concatenated streams + each tile's first bit) against the per-tile word
+    rows of _payload_to_columns (the sharded decoders' unit), including
+    byte-irregular tile boundaries."""
     from felics_tpu.parallel import tiling
 
-    L, W = 37, 19
-    words = rng.integers(0, 2**32, (L, W), dtype=np.uint32)
-    bits = rng.integers(64, W * 32 + 1, (L,), dtype=np.int64)
-    tb = (bits + 7) // 8
-    # Zero the tail bits of the last partial byte-word, like the encoder's
-    # zero-padded flush; words beyond the used count keep their junk.
-    for li in range(L):
-        nb = int(tb[li])
-        if nb % 4:
-            words[li, nb // 4] &= np.uint32(
-                (0xFFFFFFFF << (8 * (4 - nb % 4))) & 0xFFFFFFFF
-            )
-    ref = tiling._columns_to_payload(words, tb)
-    cap = tiling._bucket_bytes(int(tb.sum()))
-    pay, tbj, total = tiling._compact_payload_jit(
-        jnp.asarray(words), jnp.asarray(bits.astype(np.int32)), cap
-    )
-    pay, total = np.asarray(pay), int(total)
-    assert total == int(tb.sum())
-    assert pay[:total].tobytes() == ref
-    assert not pay[total:].any()
+    L = 37
+    tb = rng.integers(1, 80, (L,)).astype(np.int64)
+    payload = rng.integers(0, 256, int(tb.sum()), dtype=np.uint8).tobytes()
+    words, starts = tiling._payload_words(payload, tb)
+    assert words.dtype == np.uint32 and len(words) * 4 >= len(payload) + 4
+    flat = words.astype(">u4").tobytes()
+    assert flat[: len(payload)] == payload
+    assert not any(flat[len(payload):])
+    byte_starts = np.concatenate([[0], np.cumsum(tb)[:-1]])
+    np.testing.assert_array_equal(starts, byte_starts * 8)
 
-    starts = np.concatenate([[0], np.cumsum(tb)[:-1]]).astype(np.int64)
-    wd = int((tb.max() + 3) // 4)
-    ref_cols = tiling._payload_to_columns(ref, starts, tb, wd)
-    pad = tiling._bucket_bytes(len(ref))
-    buf = np.frombuffer(ref.ljust(pad, b"\0"), dtype=np.uint8)
-    cols = tiling._expand_columns_jit(
-        jnp.asarray(buf), jnp.asarray(starts, jnp.int32),
-        jnp.asarray(tb.astype(np.int32)), wd,
-    )
-    np.testing.assert_array_equal(np.asarray(cols), ref_cols)
+    wd = tiling.bucket_words(int((tb.max() + 3) // 4))
+    rows = tiling._payload_to_columns(payload, byte_starts, tb, wd)
+    for i in range(L):
+        got = rows[i].astype(">u4").tobytes()
+        ref = payload[byte_starts[i] : byte_starts[i] + tb[i]]
+        assert got[: tb[i]] == ref
+        assert not any(got[tb[i]:])
+    assert tiling._columns_to_payload(rows, tb) == payload
 
 
 def test_onepass_toy_tiles_fall_back(rng):
-    """Tiny tiles (<8-byte streams possible) must route around the fused
-    compactor and still produce correct containers."""
+    """Tiny tiles (streams of a few bytes) encode to the native codec's
+    bytes and decode with both engines."""
+    from felics_tpu.api import header_for_array
+    from felics_tpu.native import runtime as native_runtime
+
     img = rng.integers(0, 256, (4, 4), dtype=np.uint8)
     tc = TileConfig(tile_h=2, tile_w=2)
-    data = compress_tiled_bytes(img, tc, engine="pallas")
-    assert data == compress_tiled_bytes(img, tc, engine="xla")
-    np.testing.assert_array_equal(decompress_tiled_bytes(data), img)
+    data = compress_tiled_bytes(img, tc)
+    if native_runtime.available():
+        assert data == native_runtime.compress_tiled(
+            img, header_for_array(img), 2, 2
+        )
+    for engine in ("xla", "pallas"):
+        np.testing.assert_array_equal(decompress_tiled_bytes(data, engine), img)
 
 
-def test_odd_tiny_rgb_tiles_rejected_by_plan_on_tpu(monkeypatch):
-    """Odd tiny tile planes whose pixel-chunk block violates Mosaic's
-    sublane rule (e.g. 2x1 / 5x3 rgb: no chunk divisor of t is a multiple
-    of 8 and SC != c*t) must be rejected by kernel_plan when Mosaic will
-    actually compile (on TPU) — previously they crashed inside the Pallas
-    TPU lowering. Off-TPU the interpreter has no such constraint and the
-    plan stays available (the differential fuzz exercises those shapes)."""
-    from felics_tpu.config import tiled_config_for_depth
-    from felics_tpu.format import PixelDepth
-    from felics_tpu.ops import pallas_codec as pc
-
-    cfg = tiled_config_for_depth(PixelDepth.EIGHT)
-    # Off-TPU (this suite): odd plans allowed for the interpreter.
-    assert pc.kernel_plan(cfg, 2, 1, 3, 64) is not None
-    monkeypatch.setattr(pc, "on_tpu", lambda: True)
-    # On TPU: no divisor of t={2,15} is a multiple of 8 and SC != c*t.
-    assert pc.kernel_plan(cfg, 2, 1, 3, 64) is None
-    assert pc.kernel_plan(cfg, 5, 3, 3, 64) is None
-    # Aligned plans survive the gate: SC % 8 == 0 (t=64) or SC == c*t
-    # (gray 5x3: SC = t = 15 equals the full walk).
-    assert pc.kernel_plan(cfg, 8, 8, 3, 64) is not None
-    assert pc.kernel_plan(cfg, 5, 3, 1, 64) is not None
-
-
-def test_aligned_device_compaction_matches_host(rng):
-    """_compact_payload_aligned_jit + _strip_word_alignment (the production
-    serving-path compaction since r5 — one gather instead of a per-word
-    searchsorted; slope-measured 92 ms -> ~10 ms on a 2048-tile rgb8 batch)
-    must reproduce the exact host payload after pad stripping."""
-    import jax.numpy as jnp
-
-    from felics_tpu.parallel import tiling
-
-    L, W = 37, 19
-    words = rng.integers(0, 2**32, (L, W), dtype=np.uint32)
-    bits = rng.integers(64, W * 32 + 1, (L,), dtype=np.int64)
-    tb = (bits + 7) // 8
-    for li in range(L):
-        nb = int(tb[li])
-        if nb % 4:
-            words[li, nb // 4] &= np.uint32(
-                (0xFFFFFFFF << (8 * (4 - nb % 4))) & 0xFFFFFFFF
-            )
-    ref = tiling._columns_to_payload(words, tb)
-    padded_total = int((((tb + 3) // 4) * 4).sum())
-    cap = tiling._bucket_bytes(padded_total)
-    pay, tbj, total = tiling._compact_payload_aligned_jit(
-        jnp.asarray(words), jnp.asarray(bits.astype(np.int32)), cap
-    )
-    pay, total = np.asarray(pay), int(total)
-    assert total == padded_total
-    np.testing.assert_array_equal(np.asarray(tbj), tb)
-    assert tiling._strip_word_alignment(pay, tb) == ref
-    assert not pay[total:].any()
+def test_odd_tiny_rgb_tiles_decode_kernel(rng):
+    """Odd tiny rgb tile planes (5x3, 2x3: no power-of-two anything) decode
+    through the Pallas kernel exactly; the kernel has no block-shape rule
+    on the tile plane, only on the lane block."""
+    img = rng.integers(0, 256, (11, 7, 3), dtype=np.uint8)
+    for tile in ((5, 3), (2, 3)):
+        data = compress_tiled_bytes(img, TileConfig(*tile))
+        np.testing.assert_array_equal(
+            decompress_tiled_bytes(data, engine="pallas"), img
+        )
